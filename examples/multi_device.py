@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """
-Scaling the geometry pipeline over a TPU device mesh.
+Scaling the geometry pipeline over a device mesh.
 
 Demonstrates the three parallel axes (SURVEY.md §2.4):
 
@@ -8,36 +8,36 @@ Demonstrates the three parallel axes (SURVEY.md §2.4):
 - ephemeris times batched/sharded (cube observations),
 - gradient-descent disc fitting with a psum-reduced loss.
 
-Works anywhere: with no TPU it runs on a virtual CPU mesh -
+Runs on every device JAX finds (for example the four GPUs of one host),
+or without accelerators on a virtual CPU mesh:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
-    JAX_PLATFORMS=cpu python tpu_scaling.py
+    JAX_PLATFORMS=cpu python examples/multi_device.py
 
-Kernels: see examples/quickstart.py (set PLANETMAPPER_KERNEL_PATH; the
-default matches this repository's test setup).
+Kernels: ``PLANETMAPPER_KERNEL_PATH`` if set, otherwise the seeded
+synthetic kernel set generated into ``build/kernels``.
 """
 
 import os
+import sys
 
 import numpy as np
 
-os.environ.setdefault(
-    'PLANETMAPPER_KERNEL_PATH',
-    os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        '..', 'reference', 'tests', 'data', 'kernels',
-    ),
-)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+import jax  # noqa: E402
 
-import planetmapper_tpu as pm
-from planetmapper_tpu.parallel import (
+import planetmapper_tpu as pm  # noqa: E402
+from planetmapper_tpu.kernels.synthetic import ensure_kernel_set  # noqa: E402
+from planetmapper_tpu.parallel import (  # noqa: E402
     backplane_time_series,
     make_mesh,
     sharded_backplanes,
     sharded_map_img,
 )
+
+if not os.environ.get('PLANETMAPPER_KERNEL_PATH'):
+    pm.set_kernel_path(ensure_kernel_set())
 
 
 def sharded_pixels():
@@ -75,11 +75,12 @@ def sharded_times():
 
 def multihost_note():
     """
-    On a multi-host pod slice, call
-    ``planetmapper_tpu.parallel.initialize_distributed()`` first (or rely
-    on the standard cluster env vars); ``make_multihost_mesh()`` then
-    returns a host-spanning mesh where the time axis crosses DCN and the
-    pixel axis stays on each host's ICI.
+    On several hosts, call
+    ``planetmapper_tpu.parallel.initialize_distributed(...)`` first (or
+    set ``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES`` and
+    ``JAX_PROCESS_ID``); ``make_multihost_mesh()`` then returns a
+    host-spanning mesh where the time axis crosses hosts and the pixel
+    axis stays on each host's devices.
     """
     print('devices:', jax.device_count(), 'processes:', jax.process_count())
 

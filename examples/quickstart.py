@@ -5,29 +5,26 @@ Quickstart tour of planetmapper_tpu's Python API.
 Needs SPICE kernels covering Jupiter/Saturn around 2000-2005. Point
 ``PLANETMAPPER_KERNEL_PATH`` at any kernel directory (see
 ``planetmapper_tpu.kernel_downloader`` to fetch generic kernels from
-NAIF); the small real kernel excerpts in a planetmapper reference
-checkout's ``tests/data/kernels`` are enough and work offline:
+NAIF); without it the example uses the seeded synthetic kernel set
+(:mod:`planetmapper_tpu.kernels.synthetic`), which works offline but is a
+fixture, not an ephemeris:
 
-    PLANETMAPPER_KERNEL_PATH=/path/to/kernels python quickstart.py
-
-The default below matches this repository's test setup (the reference
-checkout mounted as a sibling directory).
+    python examples/quickstart.py
 """
 
 import os
+import sys
 
 import matplotlib.pyplot as plt
 import numpy as np
 
-os.environ.setdefault(
-    'PLANETMAPPER_KERNEL_PATH',
-    os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        '..', 'reference', 'tests', 'data', 'kernels',
-    ),
-)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import planetmapper_tpu as pm
+import planetmapper_tpu as pm  # noqa: E402
+from planetmapper_tpu.kernels.synthetic import ensure_kernel_set  # noqa: E402
+
+if not os.environ.get('PLANETMAPPER_KERNEL_PATH'):
+    pm.set_kernel_path(ensure_kernel_set())
 
 OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'output')
 
@@ -60,7 +57,7 @@ def wireframe_plot():
 
 def backplanes_on_device():
     """
-    The render core: every backplane for every pixel in ONE fused TPU
+    The render core: every backplane for every pixel in ONE fused device
     program. The first call compiles; subsequent disc-parameter changes
     re-use the compiled program (disc parameters are traced arguments).
     """

@@ -2,7 +2,7 @@
 Base classes: session management, caching, time utilities and the
 common machinery shared by Body/BasicBody/BodyXY/Observation.
 
-API-parity layer over the TPU-native kernel/ephemeris engine, mirroring the
+API-parity layer over the JAX kernel/ephemeris engine, mirroring the
 reference's ``planetmapper/base.py`` (SpiceBase base.py:202, BodyBase
 base.py:786) without any CSPICE dependency: body-name handling goes through
 the built-in NAIF table, time conversion through the LSK-driven time module,
@@ -150,7 +150,7 @@ class SpiceBase:
     caching, progress hooks, time conversion and generic helpers.
 
     Parity with the reference's ``SpiceBase`` (base.py:202-783); the
-    ``optimize_speed`` flag is accepted for API compatibility (the TPU
+    ``optimize_speed`` flag is accepted for API compatibility (the device
     pipeline is always batched, so there is no string-encoding fast path to
     toggle).
     """
@@ -185,14 +185,6 @@ class SpiceBase:
             self.load_spice_kernels(
                 kernel_path=kernel_path, manual_kernels=manual_kernels
             )
-
-        # Absorb the one-time TPU session init (a transport cost paid
-        # by the first post-work fetch, 10-130 s measured) concurrently
-        # with scene setup and compilation; no-op after the first call
-        # or on CPU (see _session_warm module docstring)
-        from ._session_warm import start_session_warm
-
-        start_session_warm()
 
     # -- infrastructure shared with the reference API ----------------------
     def __repr__(self) -> str:

@@ -5,7 +5,7 @@ Same public interface as the reference's ``Body`` class (coordinate
 transforms between lonlat/radec/km/angular and the internal targvec/obsvec
 representations, limb and terminator curves, illumination, visibility,
 rings, local solar time, radial velocities, planetographic/planetocentric
-conversions), implemented on the batched TPU scene engine: every transform
+conversions), implemented on the batched device scene engine: every transform
 accepts floats or arbitrarily-shaped numpy arrays, and array inputs run as
 one fused device computation instead of the reference's per-element scalar
 SPICE loop (reference base.py:718-759).
@@ -94,8 +94,8 @@ class LonLatGridKwargs(TypedDict, total=False):
 def _host_unit_from_radec(ra, dec):
     """
     Unit vector(s) from RA/Dec radians, in host numpy. The scalar API's
-    coordinate transforms must invert each other exactly: device (TPU)
-    f64 transcendentals round at ~1e-9 rad (~km on the target plane), so
+    coordinate transforms must invert each other exactly: accelerator
+    f64 transcendentals may round at ~1e-9 rad (~km on the target plane), so
     every host-side radec/rect conversion goes through this pair.
     """
     with np.errstate(invalid='ignore'):  # NaN in == NaN out, silently
@@ -677,8 +677,8 @@ class Body(BodyBase):
         from .core.scene import _host_device
 
         with _host_device():
-            # local CPU: device (TPU) f64 transcendentals round at ~1e-9,
-            # which breaks exact round trips of the scalar API
+            # host CPU: an accelerator's f64 transcendentals may round at
+            # ~1e-9, which breaks exact round trips of the scalar API
             targvec = np.asarray(
                 geom.geodetic_to_rect(
                     lon_e, lat, np.asarray(alt, dtype=float),

@@ -18,7 +18,7 @@ def main(args: list[str] | None = None) -> None:
     parser = argparse.ArgumentParser(
         prog='planetmapper-tpu',
         description=(
-            'planetmapper_tpu: a TPU-native package for visualising, '
+            'planetmapper_tpu: a JAX package for visualising, '
             'navigating and mapping Solar System observations. Run with '
             'no arguments to launch the graphical interface.'
         ),

@@ -5,17 +5,17 @@ __author__ = 'planetmapper-tpu developers'
 __url__ = 'https://github.com/planetmapper-tpu/planetmapper-tpu'
 __license__ = 'MIT'
 __description__ = (
-    'TPU-native planetary geometry, navigation and mapping framework'
+    'JAX planetary geometry, navigation and mapping framework'
 )
 
 CITATION_STRING = (
-    'planetmapper_tpu: a TPU-native planetary geometry framework, '
+    'planetmapper_tpu: a JAX planetary geometry framework, '
     f'version {__version__}'
 )
 CITATION_DOI = ''
 CITATION_BIBTEX = (
     '@misc{planetmapper_tpu,\n'
-    '  title = {planetmapper\\_tpu: a TPU-native planetary geometry framework},\n'
+    '  title = {planetmapper\\_tpu: a JAX planetary geometry framework},\n'
     f'  note = {{version {__version__}}},\n'
     '}'
 )

@@ -18,7 +18,7 @@ Coordinates transform to the body-fixed frame via
     r_bf = Rz(w) Rx(pi/2 - dec) Rz(pi/2 + ra) r_J2000
 
 Being closed-form jnp code, the rotation (and its exact time derivative via
-``jax.jacfwd``) evaluates per-pixel on the TPU inside the vmapped backplane
+``jax.jacfwd``) evaluates per-pixel on the device inside the vmapped backplane
 pipeline - the reference instead calls ``spice.pxfrm2`` once per pixel.
 """
 
@@ -144,10 +144,10 @@ class BodyFrameModel:
         """
         Apply the J2000 -> body-fixed rotation to vectors ``v`` (..., 3)
         at per-element epochs ``et`` (...) WITHOUT materialising
-        ``(..., 3, 3)`` matrices: on TPU the trailing size-3 dims tile to
-        (8, 128) lanes, inflating batched matrix temporaries ~50x (an OOM
-        at map-grid sizes). Three successive axis rotations on the vector
-        components keep every temporary a well-tiled (...,) array.
+        ``(..., 3, 3)`` matrices: three successive axis rotations on the
+        vector components keep every temporary a (...,) array, where
+        batched matrix temporaries can be padded to far more than 9
+        elements each by an accelerator's tiled layouts.
         """
         ra, dec, w = self.euler_angles(et)
         return _apply_euler_313(ra, dec, w, v, inverse=False)

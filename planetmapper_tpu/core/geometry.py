@@ -14,7 +14,7 @@ routines the reference calls once per pixel / per point:
 - ``edlimb`` equivalents: the limb of an ellipsoid as an exact ellipse
 
 All functions are elementwise jnp code over arbitrary batch shapes: they
-vmap/jit cleanly and form the body of the fused per-pixel TPU pipeline.
+vmap/jit cleanly and form the body of the fused per-pixel device pipeline.
 Angles are radians, longitudes are *east-positive* internally (the
 planetographic W/E sign convention is applied by the API layer, matching
 ``Body.positive_longitude_direction``).

@@ -2,7 +2,7 @@
 Graphical user interface for interactively fitting observations.
 
 Feature parity with the reference's tkinter GUI
-(/root/reference/planetmapper/gui.py): a plot of the observation with a
+(the reference's planetmapper/gui.py): a plot of the observation with a
 live, blitted wireframe overlay; keyboard shortcuts for adjusting the
 disc; a disc-finding routine registry; a tabbed control panel (controls /
 plot settings / disc finding / help); per-artist plot-settings editors;
@@ -323,7 +323,7 @@ class GUI:
                     lambda: self._run_gradient_fit(),
                     'Fit disc (gradient descent)',
                     'Fit all disc parameters by differentiable rendering '
-                    '(TPU-accelerated gradient descent)',
+                    '(device-accelerated gradient descent)',
                     None,
                 ),
             ],

@@ -1,7 +1,7 @@
 """
 SPK ephemeris segment parsing and on-device evaluation.
 
-This is the TPU-native replacement for CSPICE's SPK subsystem (used by the
+This is the JAX replacement for CSPICE's SPK subsystem (used by the
 reference via ``spice.spkezr``, planetmapper/base.py:828): segments are
 parsed once on the host into dense coefficient arrays, and evaluation is a
 pure JAX function of time - vmappable, jittable, and differentiable (segment
@@ -122,6 +122,23 @@ def _parse_type_2_3(words: np.ndarray, data_type: int) -> ChebyshevData:
     radii = records[:, 1].copy()
     coeffs = records[:, 2:].reshape(n, ncomp, degree).copy()
     return ChebyshevData(float(init), float(intlen), mids, radii, coeffs)
+
+
+def pack_type_2(init: float, intlen: float, coeffs: np.ndarray) -> np.ndarray:
+    """
+    Data words of a type 2 segment (the inverse of :func:`_parse_type_2_3`):
+    ``coeffs`` is ``(nrec, 3, ncoef)``; record ``i`` covers
+    ``[init + i * intlen, init + (i + 1) * intlen]``.
+    """
+    coeffs = np.asarray(coeffs, dtype=np.float64)
+    nrec = coeffs.shape[0]
+    mids = init + (np.arange(nrec) + 0.5) * intlen
+    radii = np.full(nrec, 0.5 * intlen)
+    records = np.concatenate(
+        [mids[:, None], radii[:, None], coeffs.reshape(nrec, -1)], axis=1
+    )
+    trailer = [init, intlen, records.shape[1], nrec]
+    return np.concatenate([records.reshape(-1), np.asarray(trailer, float)])
 
 
 def _parse_type_17(words: np.ndarray) -> EquinoctialData:

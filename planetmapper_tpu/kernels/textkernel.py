@@ -3,7 +3,7 @@ Parser for NAIF text kernels (LSK ``*.tls``, text PCK ``*.tpc``).
 
 This is a from-scratch implementation of the subset of the SPICE text-kernel
 grammar needed to ingest leap-second kernels and planetary-constant kernels
-into plain Python/numpy data (which is then shipped to the TPU as device
+into plain Python/numpy data (which is then shipped to the accelerator as device
 constants by the scene builder).
 
 Replaces the kernel-pool behaviour the reference gets from CSPICE ``furnsh``

@@ -191,7 +191,13 @@ class Observation(BodyXY):
 
     def _load_image_data(self) -> None:
         assert self.path is not None
-        import PIL.Image
+        try:
+            import PIL.Image
+        except ImportError as exc:
+            raise ImportError(
+                'Loading image files other than FITS needs Pillow (PIL); '
+                'install pillow to open them'
+            ) from exc
 
         with PIL.Image.open(self.path) as handle:
             raw = np.asarray(handle)

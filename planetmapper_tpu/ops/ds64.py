@@ -1,25 +1,25 @@
 """
 Native-float64 backend for the :mod:`.ds` double-single API.
 
-Double-single (hi, lo) f32-pair arithmetic exists because TPUs have no
-hardware float64: on TPU the error-free transformations in :mod:`.ds`
-deliver ~2^-49 relative precision at plain-VPU-f32 cost. On backends
-WITH native f64 (XLA:CPU in the test environment) double-single is both
-pointless (native f64 is one instruction) and actively unsafe: that
-stack's excess-precision and fast-math passes evaluate f32 chains with
-f64 intermediates or reassociate them, which nulls every error-free
-transformation term (observed as context-dependent ulp(largest-term)
-collapses of recentred 1e9-km chains - e.g. 64 km RING-RADIUS errors).
+Double-single (hi, lo) f32-pair arithmetic exists for accelerators
+without hardware float64, where the error-free transformations in
+:mod:`.ds` deliver ~2^-49 relative precision at f32 cost. On backends
+WITH native f64 (CPUs, GPUs) double-single is both pointless (native f64
+is one instruction) and actively unsafe: XLA's excess-precision and
+fast-math passes may evaluate f32 chains with f64 intermediates or
+reassociate them, which nulls every error-free transformation term
+(observed as context-dependent ulp(largest-term) collapses of recentred
+1e9-km chains - e.g. 64 km RING-RADIUS errors).
 
 This module implements the exact same call surface where a "ds value"
 is ``(x_float64, zero_float32)``: the hi word carries the full native
 f64 value, the lo word is identically zero. All :mod:`.ds` invariants
-hold trivially (|lo| <= ulp(hi)/2), precision is >= the TPU backend's
+hold trivially (|lo| <= ulp(hi)/2), precision is >= double-single's
 (2^-53 vs ~2^-49), and mixed hi-word arithmetic written against the ds
 API promotes cleanly under ``jax_enable_x64``.
 
-Select per-backend with :func:`planetmapper_tpu.pipeline.pick_ds` (TPU
--> :mod:`.ds`, native-f64 backends -> this module).
+:func:`planetmapper_tpu.pipeline.pick_ds` returns this module on every
+backend (``PLANETMAPPER_TPU_DS=ds`` selects :mod:`.ds` instead).
 """
 
 from __future__ import annotations

@@ -1,11 +1,11 @@
 """
-Mixed-precision building blocks for the fused TPU pipeline.
+Mixed-precision building blocks for the fused pipeline's ``'mixed'`` mode.
 
-TPU v5e has no hardware float64: XLA emulates it in software, and the
-emulated *transcendentals* (sin/atan2) and div/sqrt are ~10-40x the cost of
-a float64 multiply, while float32 ops are effectively free (bandwidth
-bound). These helpers give near-float64 results using only float64
-multiplies/adds plus a float32 seed:
+Written for accelerators that emulate float64 in software, where the
+emulated *transcendentals* (sin/atan2) and div/sqrt cost ~10-40x a float64
+multiply while float32 ops are effectively free. These helpers give
+near-float64 results using only float64 multiplies/adds plus a float32
+seed:
 
 - ``recip64`` / ``rsqrt64`` / ``sqrt64``: float32 reciprocal / rsqrt seed
   refined with ONE Newton-Raphson step carried out in float64 arithmetic.

@@ -3,7 +3,7 @@ Device-side image -> map interpolation kernels for :func:`BodyXY.map_img`.
 
 The reference evaluates scipy interpolators per map cell on the CPU
 (body_xy.py:1633-1702). Here the per-cell work (the O(map-size) part) runs
-on the TPU as vectorised gathers + B-spline tensor-product evaluation:
+on the device as vectorised B-spline tensor-product evaluation:
 
 - ``nearest``: one gather per cell.
 - spline degrees 1-3: FITPACK *coefficients* are still solved on the host
@@ -34,86 +34,6 @@ import numpy as np
 
 _XY_CACHE: dict[tuple, tuple] = {}
 _XY_CACHE_MAX = 8
-
-#: staged basis/index/flag channels for the Pallas map evaluator,
-#: cached per (map coordinates, spline configuration): they depend on
-#: the sample positions and knots, not the image, so a frame stream
-#: stages once (see ops/map_pallas.py)
-_STAGED_CACHE: dict[tuple, tuple] = {}
-_STAGED_CACHE_MAX = 8
-
-
-def _staged_channels(x_map, y_map, ty, tx, kx: int, ky: int,
-                     propagate_nan: bool, ny_i: int, nx_i: int,
-                     knots_key):
-    key = (
-        x_map.ctypes.data, y_map.ctypes.data, x_map.shape, y_map.shape,
-        knots_key, kx, ky, propagate_nan,
-    )
-    hit = _STAGED_CACHE.get(key)
-    if hit is not None:
-        return hit[:3]
-    from .map_pallas import stage_samples
-
-    x_dev, y_dev, valid_dev = _device_xy(x_map, y_map)
-    by, bx, aux = stage_samples(
-        ty, tx, kx, ky, propagate_nan, y_dev, x_dev, valid_dev,
-        ny_i, nx_i,
-    )
-    if len(_STAGED_CACHE) >= _STAGED_CACHE_MAX:
-        _STAGED_CACHE.pop(next(iter(_STAGED_CACHE)))
-    # keep the host maps alive: they pin the data pointers in `key`
-    _STAGED_CACHE[key] = (by, bx, aux, x_map, y_map)
-    return by, bx, aux
-
-
-#: windowed-staging cache: per (map coordinates, spline config, source
-#: shape) either the staged tuple + plan, or None when no window side
-#: fits (the map stays on the XLA tiled path). One host sync per config
-#: to read the fits flag; frames reuse the cached channels.
-_WINDOWED_CACHE: dict[tuple, tuple | None] = {}
-_WINDOWED_CACHE_MAX = 8
-
-
-def _staged_windowed(x_map, y_map, ty, tx, kx: int, ky: int,
-                     propagate_nan: bool, n_cy: int, n_cx: int,
-                     ny_i: int, nx_i: int, knots_key):
-    """
-    Staged channels + plan for the windowed Mosaic map evaluator, or
-    None when no candidate window covers every tile's footprint.
-    """
-    key = (
-        x_map.ctypes.data, y_map.ctypes.data, x_map.shape, y_map.shape,
-        knots_key, kx, ky, propagate_nan, 'windowed',
-    )
-    if key in _WINDOWED_CACHE:
-        hit = _WINDOWED_CACHE[key]
-        # entries always end with the (x_map, y_map) pair that pins
-        # the data pointers in `key` - including unfit (staged=None)
-        # entries, else a later array reusing the address would
-        # false-hit the cached verdict
-        return hit[0]
-    from .map_pallas import _WIN_SIDES, WindowPlan, stage_windowed
-
-    my, mx = x_map.shape
-    x_dev, y_dev, valid_dev = _device_xy(x_map, y_map)
-    staged = None
-    for win in _WIN_SIDES:
-        plan = WindowPlan(
-            kx=kx, ky=ky, propagate_nan=propagate_nan, win=win,
-            tile_h=32, tile_w=64, my=my, mx=mx,
-            n_cy=n_cy, n_cx=n_cx, ny_i=ny_i, nx_i=nx_i,
-        )
-        by, bx, aux, oyx, onyx, fits = stage_windowed(
-            plan, ty, tx, y_dev, x_dev, valid_dev
-        )
-        if bool(fits):  # one host sync per (map, spline, window) config
-            staged = (by, bx, aux, oyx, onyx, plan)
-            break
-    if len(_WINDOWED_CACHE) >= _WINDOWED_CACHE_MAX:
-        _WINDOWED_CACHE.pop(next(iter(_WINDOWED_CACHE)))
-    _WINDOWED_CACHE[key] = (staged, x_map, y_map)
-    return staged
 
 
 def _device_xy(x_map: np.ndarray, y_map: np.ndarray):
@@ -194,10 +114,9 @@ def _basis_onehot(jnp, lax, t, k: int, u):
     Gather-free de Boor-Cox basis: the interval index comes from a
     broadcast compare-count (== ``searchsorted(t, u, 'right') - 1``) and
     the 2k knots around each sample from ONE one-hot matmul against a
-    (n_t, 2k) matrix of shifted knot vectors. TPU gathers scalarize to
-    ~100 Melem/s while compares and small matmuls stream at full
-    bandwidth - this is the whole reason the map-reprojection kernel is
-    fast (430 -> ~10 ms/frame at 1440x720).
+    (n_t, 2k) matrix of shifted knot vectors. This formulation was chosen
+    for an accelerator whose gathers are slow; against a native-gather
+    evaluator on the H100 it is not measured.
     Returns (basis (S, k+1), interval index i (S,), one-hot of i (S, n_t)).
     """
     n_t = t.shape[0]
@@ -258,10 +177,9 @@ _ONEHOT_MAX_COEFFS = 1024
 
 #: largest source side served by the fully device-resident s=0 branch
 #: (one-time host inversion of the dense collocation matrices: ~seconds
-#: at 2048, prohibitive past it). The windowed Mosaic evaluator and the
-#: tiled one-hot contraction both handle grids this size, so 2048-class
-#: navigated observations map at kernel speed instead of falling to the
-#: host-FITPACK path.
+#: at 2048, prohibitive past it). The tiled one-hot contraction handles
+#: grids this size, so 2048-class navigated observations stay on the
+#: device instead of falling to the host-FITPACK path.
 _DEVICE_SOLVE_MAX = 2048
 
 #: Tiled-window sampling (same scheme as ops/pchip_device.py): 2D maps
@@ -443,8 +361,10 @@ def _make_onehot_eval(kx: int, ky: int, batched: bool,
             wy = _weight_matrix(jnp, by, iy - oy, ky, w_cy)
             wx = _weight_matrix(jnp, bx, ix - ox, kx, w_cx)
             if batched:
+                # index dtypes must match: a literal 0 would be int64
                 c2_w = lax.dynamic_slice(
-                    c2, (0, oy, ox), (c2.shape[0], w_cy, w_cx)
+                    c2, (jnp.zeros_like(oy), oy, ox),
+                    (c2.shape[0], w_cy, w_cx),
                 )
             else:
                 c2_w = lax.dynamic_slice(c2, (oy, ox), (w_cy, w_cx))
@@ -456,7 +376,7 @@ def _make_onehot_eval(kx: int, ky: int, batched: bool,
                 )
                 if batched:
                     nanf_w = lax.dynamic_slice(
-                        nanf, (0, oyn, oxn),
+                        nanf, (jnp.zeros_like(oyn), oyn, oxn),
                         (nanf.shape[0], w_ny, w_nx),
                     )
                 else:
@@ -567,14 +487,13 @@ def _make_onehot_eval(kx: int, ky: int, batched: bool,
 @functools.lru_cache(maxsize=None)
 def _spline_eval_onehot_fn(kx: int, ky: int, batched: bool,
                            propagate_nan: bool,
-                           out_shape: tuple | None = None,
-                           use_pallas: bool = False):
+                           out_shape: tuple | None = None):
     """
-    Jitted gather-free spline evaluator (MXU formulation).
+    Jitted gather-free spline evaluator (matmul formulation).
 
     The scattered-gather form (``_spline_eval_fn``) costs ~50 gathers of
-    N map samples; XLA:TPU scalarizes those. Here every lookup becomes a
-    one-hot/weighted matmul against the small coefficient grid:
+    N map samples. Here every lookup becomes a one-hot/weighted matmul
+    against the small coefficient grid:
 
         val[s] = sum_ab By[s,a] Bx[s,b] C[iy(s)-ky+a, ix(s)-kx+b]
                = rowsum( (Wy @ C) * Wx )
@@ -589,14 +508,7 @@ def _spline_eval_onehot_fn(kx: int, ky: int, batched: bool,
     import jax
     import jax.numpy as jnp
 
-    if use_pallas:
-        from .map_pallas import make_pallas_eval
-
-        eval_all = make_pallas_eval(kx, ky, batched, propagate_nan)
-    else:
-        eval_all = _make_onehot_eval(
-            kx, ky, batched, propagate_nan, out_shape
-        )
+    eval_all = _make_onehot_eval(kx, ky, batched, propagate_nan, out_shape)
 
     def fn(ty, tx, c, nans, y, x, valid):
         n_cy = ty.shape[0] - ky - 1
@@ -620,8 +532,8 @@ def _infill_device(jnp, frame):
 
     Fully-finite frames (the common streaming case) skip the whole
     preparation at run time via ``lax.cond`` - the nanmedian is a sort
-    of the full frame (~5 ms for a 1024-class frame on v5e, dwarfing
-    the spline solve itself). NOTE: only effective outside ``vmap``
+    of the full frame, which can dwarf the spline solve itself. NOTE:
+    only effective outside ``vmap``
     (which lowers cond to select, executing both branches); batched
     callers map frames with ``lax.map``.
     """
@@ -692,45 +604,19 @@ def _grid_spline_solver(ny: int, nx: int, kx: int, ky: int):
 @functools.lru_cache(maxsize=None)
 def _spline_solve_eval_fn(kx: int, ky: int, batched: bool,
                           propagate_nan: bool,
-                          out_shape: tuple | None = None,
-                          use_pallas: bool = False,
-                          window_plan=None):
+                          out_shape: tuple | None = None):
     """
     Jitted end-to-end map-reprojection program: NaN infill, collocation
     solve (two small matmuls against the staged inverses) and the
     gather-free spline evaluation all happen on device. The only
     per-frame host->device transfer is the raw image itself, and no host
-    FITPACK solve sits on the per-frame critical path - this is what
-    makes the synchronous single-frame ``map_img`` call fast through a
-    high-latency transport.
+    FITPACK solve sits on the per-frame critical path.
     """
     import jax
     import jax.numpy as jnp
     from jax import lax
 
-    if window_plan is not None:
-        # Windowed Mosaic variant (large sources): per-tile coefficient
-        # and NaN windows gathered per frame, kernel VMEM bounded by
-        # the window side instead of the source size.
-        from .map_pallas import make_pallas_eval_windowed
-
-        eval_windowed = make_pallas_eval_windowed(window_plan, batched)
-    elif use_pallas:
-        # Staged-channel variant: the jitted program takes the cached
-        # basis/index channels instead of raw sample coordinates, so
-        # the per-frame work is infill + collocation solve + the Pallas
-        # contraction only.
-        from .map_pallas import make_pallas_eval_staged
-
-        assert out_shape is not None
-        n_samples = out_shape[0] * out_shape[1]
-        eval_staged = make_pallas_eval_staged(
-            kx, ky, batched, propagate_nan, n_samples
-        )
-    else:
-        eval_all = _make_onehot_eval(
-            kx, ky, batched, propagate_nan, out_shape
-        )
+    eval_all = _make_onehot_eval(kx, ky, batched, propagate_nan, out_shape)
 
     def _solve(ainv_y, ainv_x, frames):
         def prep(frame):
@@ -750,18 +636,9 @@ def _spline_solve_eval_fn(kx: int, ky: int, batched: bool,
         # including the full-frame nanmedian sort)
         return lax.map(prep, frames) if batched else prep(frames)
 
-    if window_plan is not None:
-        def fn(ainv_y, ainv_x, frames, by, bx, aux, oyx, onyx):
-            c2, nanf = _solve(ainv_y, ainv_x, frames)
-            return eval_windowed(c2, nanf, by, bx, aux, oyx, onyx)
-    elif use_pallas:
-        def fn(ainv_y, ainv_x, frames, by, bx, aux):
-            c2, nanf = _solve(ainv_y, ainv_x, frames)
-            return eval_staged(c2, nanf, by, bx, aux)
-    else:
-        def fn(ty, tx, ainv_y, ainv_x, frames, y, x, valid):
-            c2, nanf = _solve(ainv_y, ainv_x, frames)
-            return eval_all(ty, tx, c2, nanf, y, x, valid)
+    def fn(ty, tx, ainv_y, ainv_x, frames, y, x, valid):
+        c2, nanf = _solve(ainv_y, ainv_x, frames)
+        return eval_all(ty, tx, c2, nanf, y, x, valid)
 
     return jax.jit(fn)
 
@@ -775,7 +652,7 @@ def _spline_eval_fn(kx: int, ky: int, batched: bool, propagate_nan: bool):
     def eval_one(ty, tx, c, nans, y, x, valid):
         # f32 evaluation throughout: a ~1e-5 px sample-position rounding
         # times O(1/px) image gradients sits below the 2e-5 comparison
-        # tolerance, and TPU f32 is ~10x f64
+        # tolerance
         ty = ty.astype(jnp.float32)
         tx = tx.astype(jnp.float32)
         c = c.astype(jnp.float32)
@@ -801,9 +678,9 @@ def _spline_eval_fn(kx: int, ky: int, batched: bool, propagate_nan: bool):
         mask = valid
         if propagate_nan:
             mask = mask & ~_propagate_nan_mask(jnp, x, y, nans)
-        # f32 result: halves the device->host transfer (which dominates on
-        # remote-TPU transports); 6e-8 relative rounding of *data* values
-        # is far below any science use of a reprojected image
+        # f32 result: halves the device->host transfer; 6e-8 relative
+        # rounding of *data* values is far below any science use of a
+        # reprojected image
         return jnp.where(mask, val, jnp.nan).astype(jnp.float32)
 
     if batched:
@@ -877,60 +754,15 @@ def spline_interpolation_device(
                         'Warning, image contains NaN values which will '
                         'be corrected'
                     )
-        from .map_pallas import (
-            pallas_map_supported,
-            pallas_map_windowed_candidate,
-        )
-
-        # s=0 interpolation: one coefficient per data point per axis
-        use_pallas = (
-            pallas_map_supported(kx, ky, ny_i, nx_i, ny_i, nx_i)
-            and x_map.ndim == 2
-        )
-        # On TPU the frame uploads/solves in f32: there is no hardware
-        # f64 (emulated matmuls + a 2x bigger transfer for ~1e-7 relative
-        # coefficient precision the f32 evaluation cannot use anyway).
-        # CPU keeps f64 end-to-end.
-        cpu = jax.default_backend() == 'cpu'
         ty, tx, ainv_y, ainv_x = _grid_spline_solver(ny_i, nx_i, kx, ky)
-        staged_win = None
-        if (
-            not use_pallas
-            and x_map.ndim == 2
-            and pallas_map_windowed_candidate(kx, ky)
-        ):
-            # Sources past the plain kernel's VMEM cap: try the
-            # windowed kernel (per-tile coefficient windows); unfit
-            # maps (footprints wider than every window side) stay on
-            # the XLA tiled path.
-            staged_win = _staged_windowed(
-                x_map, y_map, ty, tx, kx, ky, propagate_nan,
-                ny_i, nx_i, ny_i, nx_i,
-                knots_key=('s0-grid', ny_i, nx_i, kx, ky),
-            )
         fn = _spline_solve_eval_fn(
             kx, ky, cube, propagate_nan,
             tuple(x_map.shape) if x_map.ndim == 2 else None,
-            use_pallas=use_pallas,
-            window_plan=None if staged_win is None else staged_win[5],
         )
-        frames_dev = jnp.asarray(
-            img, dtype=jnp.float64 if cpu else jnp.float32
+        vals = fn(
+            ty, tx, ainv_y, ainv_x, jnp.asarray(img, dtype=jnp.float64),
+            y_dev, x_dev, valid_dev,
         )
-        if staged_win is not None:
-            by, bx, aux, oyx, onyx, _plan = staged_win
-            vals = fn(ainv_y, ainv_x, frames_dev, by, bx, aux, oyx, onyx)
-        elif use_pallas:
-            by, bx, aux = _staged_channels(
-                x_map, y_map, ty, tx, kx, ky, propagate_nan,
-                ny_i, nx_i, knots_key=('s0-grid', ny_i, nx_i, kx, ky),
-            )
-            vals = fn(ainv_y, ainv_x, frames_dev, by, bx, aux)
-        else:
-            vals = fn(
-                ty, tx, ainv_y, ainv_x, frames_dev,
-                y_dev, x_dev, valid_dev,
-            )
         vals = vals.reshape(img.shape[:-2] + x_map.shape)
         if not propagate_nan:
             # Host semantics: a frame with no finite values maps to NaN
@@ -953,14 +785,7 @@ def spline_interpolation_device(
         n_cy = ty.shape[0] - ky - 1
         n_cx = tx.shape[0] - kx - 1
         out_shape = tuple(x_map.shape) if x_map.ndim == 2 else None
-        from .map_pallas import pallas_map_supported
-
-        if pallas_map_supported(kx, ky, n_cy, n_cx, ny_i, nx_i):
-            return _spline_eval_onehot_fn(
-                kx, ky, batched, propagate_nan, out_shape,
-                use_pallas=True,
-            )
-        # The tiled-window contraction keeps the one-hot (MXU) evaluator
+        # The tiled-window contraction keeps the one-hot evaluator
         # viable for arbitrarily large coefficient grids: weight matrices
         # are window-wide, not grid-wide. The predicate MUST be the same
         # one eval_all applies, else a large grid would contract untiled.
@@ -999,8 +824,6 @@ def spline_interpolation_device(
             # share knot counts but not positions, so compare values
             # Different smoothing outcomes per frame: rare; evaluate alone
             fn = pick_eval(ty, tx, False)
-            # one batched upload: each separate host->device sync through
-            # a remote-TPU transport pays a fixed latency quantum
             dev = jax.device_put((ty, tx, c, np.isnan(frame)))
             vals = fn(*dev, y_dev, x_dev, valid_dev)
             results[i] = np.asarray(vals).reshape(x_map.shape)

@@ -20,8 +20,7 @@ cubics - is expressed with fixed shapes:
   are known at trace time, so per-cell quantities move to the oversampled
   grid with ``jnp.repeat`` (static total) instead of dynamic gathers;
 - the final map-sample stage is the same chunked one-hot/weight-matrix
-  bilinear evaluation used by the spline path (TPU gathers scalarize;
-  compare+matmul streams at full bandwidth), with scipy's NaN semantics
+  bilinear evaluation used by the spline path, with scipy's NaN semantics
   (any referenced corner NaN -> NaN) reproduced via indicator matmuls.
 """
 
@@ -29,7 +28,6 @@ from __future__ import annotations
 
 import functools
 import math
-import os
 
 import numpy as np
 
@@ -226,9 +224,11 @@ def _pchip_axis(jnp, lax, values, n_eval: int, k_rep: int):
 # point tiles; each tile's samples hit a localized patch of the
 # oversampled grid, so its one-hot matmuls contract against a
 # _WIN x _WIN dynamic window instead of the full grid (8-10x fewer
-# MXU flops at the default 5x oversampling). Tiles whose footprint
-# exceeds the window (rare: pathological projections) fall back to the
-# full-grid contraction via lax.cond.
+# matmul flops at the default 5x oversampling). Tiles whose footprint
+# exceeds the window fall back, via lax.cond, to direct gathers: common
+# at detector sizes (a 1024^2 source at 0.25 deg, where a 64-cell tile
+# spans ~600 oversampled pixels), where the full-grid one-hot contraction
+# took ~0.8 s per frame on an H100.
 
 
 @functools.lru_cache(maxsize=64)
@@ -288,6 +288,28 @@ def _smooth_fn(ny: int, nx: int, ny_b: int, nx_b: int,
         nan_hit = jnp.sum(
             jnp.matmul(cy, grid_nan, precision=lax.Precision.HIGHEST) * cx,
             axis=-1,
+        ) > 0.5
+        return jnp.where(mask & ~nan_hit, val, jnp.nan)
+
+    def bilinear_gather(grid_f32, grid_nan, ybl, xbl, mask):
+        """:func:`bilinear` by direct gathers of the four corners: the
+        fallback for tiles whose samples spread wider than the window,
+        where a full-grid one-hot contraction costs O(samples x grid)."""
+        NY, NX = grid_f32.shape
+        iy = jnp.clip(jnp.floor(ybl), 0, max(NY - 2, 0)).astype(jnp.int32)
+        ix = jnp.clip(jnp.floor(xbl), 0, max(NX - 2, 0)).astype(jnp.int32)
+        ty = (ybl - iy).astype(jnp.float32)
+        tx = (xbl - ix).astype(jnp.float32)
+        iy1 = jnp.minimum(iy + 1, NY - 1)
+        ix1 = jnp.minimum(ix + 1, NX - 1)
+        val = (
+            (grid_f32[iy, ix] * (1.0 - tx) + grid_f32[iy, ix1] * tx)
+            * (1.0 - ty)
+            + (grid_f32[iy1, ix] * (1.0 - tx) + grid_f32[iy1, ix1] * tx) * ty
+        )
+        nan_hit = (
+            grid_nan[iy, ix] + grid_nan[iy, ix1] + grid_nan[iy1, ix]
+            + grid_nan[iy1, ix1]
         ) > 0.5
         return jnp.where(mask & ~nan_hit, val, jnp.nan)
 
@@ -405,9 +427,15 @@ def _smooth_fn(ny: int, nx: int, ny_b: int, nx_b: int,
         def full(_):
             mask = care
             if propagate_nan:
-                uy, ux, outside_f, _ = nan_indicators(y, x, ny, nx, 0, 0)
-                mask = nan_mask(uy, ux, outside_f, img_nan, mask)
-            return bilinear(grid_f32, grid_nan, yb, xb, mask)
+                _, _, outside_f, (y0g, y1g, x0g, x1g) = nan_indicators(
+                    y, x, 1, 1, 0, 0
+                )
+                hit = (
+                    img_nan[y0g, x0g] + img_nan[y0g, x1g]
+                    + img_nan[y1g, x0g] + img_nan[y1g, x1g]
+                ) > 0.5
+                mask = mask & ~(outside_f | hit)
+            return bilinear_gather(grid_f32, grid_nan, yb, xb, mask)
 
         return lax.cond(fits, windowed, full, None)
 
@@ -486,104 +514,8 @@ def _smooth_fn(ny: int, nx: int, ny_b: int, nx_b: int,
     return jax.jit(fn)
 
 
-#: staged spatial tiles for the windowed Pallas sampler, cached per
-#: (map coordinates, box origin, oversampling): they depend only on the
-#: map geometry, so a frame stream (or GUI scrub at fixed disc) stages
-#: once. Entries keep the host maps alive to pin the pointer keys.
-_SMOOTH_STAGED_CACHE: dict[tuple, tuple] = {}
-_SMOOTH_STAGED_CACHE_MAX = 8
-
 #: cached map-extent pixel bounding boxes (see smooth_interpolation_device)
 _BOX_CACHE: dict[tuple, tuple] = {}
-
-
-def _staged_smooth_tiles(x_map, y_map, iy0: int, ix0: int,
-                         ny_b: int, nx_b: int, ky_rep: int, kx_rep: int,
-                         ny: int, nx: int, propagate_nan: bool):
-    """Cached host staging for the windowed Pallas smooth sampler
-    (:func:`.smooth_pallas.stage_smooth_tiles`); ``None`` when some tile's
-    footprint exceeds the window (caller keeps the XLA path)."""
-    import jax.numpy as jnp
-
-    key = (
-        x_map.ctypes.data, y_map.ctypes.data, x_map.shape,
-        iy0, ix0, ny_b, nx_b, ky_rep, kx_rep, ny, nx, propagate_nan,
-    )
-    hit = _SMOOTH_STAGED_CACHE.get(key)
-    if hit is not None:
-        return hit[0]
-    from .smooth_pallas import stage_smooth_tiles
-
-    n_xs = (nx_b - 1) * kx_rep + 1
-    n_ys = (ny_b - 1) * ky_rep + 1
-    x_step = (nx_b - 1) / (n_xs - 1) if n_xs > 1 else 1.0
-    y_step = (ny_b - 1) / (n_ys - 1) if n_ys > 1 else 1.0
-    staged = stage_smooth_tiles(
-        x_map, y_map, iy0, ix0, n_ys, n_xs, y_step, x_step,
-        ny, nx, propagate_nan,
-    )
-    if staged is not None:
-        by, bx, aux, oy, ox, my_p, mx_p = staged
-        staged = tuple(jnp.asarray(a) for a in (by, bx, aux, oy, ox))
-    if len(_SMOOTH_STAGED_CACHE) >= _SMOOTH_STAGED_CACHE_MAX:
-        _SMOOTH_STAGED_CACHE.pop(next(iter(_SMOOTH_STAGED_CACHE)))
-    _SMOOTH_STAGED_CACHE[key] = (staged, x_map, y_map)
-    return staged
-
-
-@functools.lru_cache(maxsize=64)
-def _smooth_pallas_fn(ny: int, nx: int, ny_b: int, nx_b: int,
-                      ky_rep: int, kx_rep: int, propagate_nan: bool,
-                      n_tiles: int, my: int, mx: int, batched: bool,
-                      interpret: bool = False):
-    """
-    Jitted end-to-end 'smooth' program on the windowed Pallas sampler:
-    box slice + separable PCHIP oversample in XLA, bilinear sampling in
-    the Mosaic kernel (:mod:`.smooth_pallas`). Same semantics as
-    :func:`_smooth_fn`; engaged only when the static staging fits.
-    """
-    import jax
-    import jax.numpy as jnp
-    from jax import lax
-
-    from .smooth_pallas import make_smooth_eval, untile
-
-    n_xs = (nx_b - 1) * kx_rep + 1
-    n_ys = (ny_b - 1) * ky_rep + 1
-    ev = make_smooth_eval(
-        propagate_nan, n_ys, n_xs, ny, nx, n_tiles, interpret
-    )
-    # f32 PCHIP on accelerators: the sampler contracts in f32 anyway, so
-    # f64 oversampling (emulated on TPU, ~2x the whole smooth cost)
-    # buys nothing past input quantization; CPU/interpret keeps f64 so
-    # the host-parity tests see the reference-grade chain
-    dt = (
-        jnp.float64 if jax.default_backend() == 'cpu' else jnp.float32
-    )
-
-    def one(img, iy0, ix0, oy, ox, by, bx, aux):
-        box = lax.dynamic_slice(
-            img, (iy0, ix0), (ny_b, nx_b)
-        ).astype(dt)
-        intermediate = _pchip_axis(jnp, lax, box, n_xs, kx_rep)
-        final = _pchip_axis(
-            jnp, lax, jnp.swapaxes(intermediate, 0, 1), n_ys, ky_rep
-        )
-        final = jnp.swapaxes(final, 0, 1)  # (n_ys, n_xs)
-        img_nan = jnp.isnan(img).astype(jnp.float32)
-        vals = ev(final, img_nan, oy, ox, by, bx, aux)
-        return untile(vals, my, mx)
-
-    if batched:
-        # lax.map, not vmap: the kernel program is single-frame (see
-        # ops/map_pallas.py on frame grid axes)
-        def fn(img, iy0, ix0, oy, ox, by, bx, aux):
-            return lax.map(
-                lambda im: one(im, iy0, ix0, oy, ox, by, bx, aux), img
-            )
-    else:
-        fn = one
-    return jax.jit(fn)
 
 
 def smooth_interpolation_device(
@@ -655,45 +587,7 @@ def smooth_interpolation_device(
     kx_rep = pick_rep(ix1 - ix0)
     ky_rep = pick_rep(iy1 - iy0)
 
-    # Windowed Mosaic sampler (TPU): engaged when the static host
-    # staging proves every spatial tile's footprint fits the window.
-    # 'force' runs it in interpret mode on any backend (tests).
-    from .smooth_pallas import smooth_pallas_enabled
-
-    force = os.environ.get(
-        'PLANETMAPPER_TPU_SMOOTH_PALLAS', ''
-    ).lower() == 'force'
-    staged = None
-    if force or smooth_pallas_enabled():
-        staged = _staged_smooth_tiles(
-            x_map, y_map, iy0, ix0, iy1 - iy0, ix1 - ix0,
-            ky_rep, kx_rep, ny, nx, propagate_nan,
-        )
-    import jax
-
-    # f32 upload on accelerators for the kernel path (the whole chain
-    # past the upload is f32 there; halves the per-frame H2D bytes)
-    img_dev = jnp.asarray(
-        img,
-        dtype=jnp.float64 if (
-            staged is None or jax.default_backend() == 'cpu'
-        ) else jnp.float32,
-    )
-    if staged is not None:
-        by, bx, aux, oy, ox = staged
-        fnp = _smooth_pallas_fn(
-            ny, nx, iy1 - iy0, ix1 - ix0, ky_rep, kx_rep,
-            propagate_nan, int(oy.shape[0]), *x_map.shape,
-            batched=is_cube, interpret=force,
-        )
-        vals = fnp(
-            img_dev, jnp.int32(iy0), jnp.int32(ix0), oy, ox, by, bx, aux
-        )
-        vals = vals.reshape(out_shape)
-        if as_numpy:
-            return np.asarray(vals, dtype=np.float64)
-        return vals
-
+    img_dev = jnp.asarray(img, dtype=jnp.float64)
     x_dev, y_dev, valid_dev = _device_xy(x_map, y_map)
     fn = _smooth_fn(
         ny, nx, iy1 - iy0, ix1 - ix0, ky_rep, kx_rep, propagate_nan,

@@ -94,7 +94,7 @@ def make_training_step(
     ``step(params, opt_state, data) -> (params, opt_state, loss)`` performs
     one Adam update. ``data`` is a (nframes, ny, nx) cube: the frame axis is
     sharded data-parallel and the row axis spatially, so the loss mean is a
-    cross-shard reduction (psum) over the ICI mesh.
+    cross-shard reduction (psum) over the mesh.
     """
     import jax
     import jax.numpy as jnp

@@ -1,19 +1,20 @@
 """
-Multi-host (DCN) scaling: process initialisation and host-spanning meshes.
+Multi-host scaling: process initialisation and host-spanning meshes.
 
 The geometry pipeline's parallel axes map onto hardware like this:
 
-- **pixel rows** shard over the fast intra-host ICI links (the forward
+- **pixel rows** shard over the devices of one host (the forward
   geometry pass is communication-free, so this is pure weak scaling);
-- **frames / ephemeris times** (JWST-cube style batches) shard over DCN
-  across hosts - each frame is independent, so cross-host traffic is
-  limited to result gathering;
-- reductions (gradient disc fitting's loss ``psum``, map assembly) ride
-  ICI first and cross DCN once per step.
+- **frames / ephemeris times** (JWST-cube style batches) shard across
+  hosts - each frame is independent, so cross-host traffic is limited to
+  result gathering;
+- reductions (gradient disc fitting's loss ``psum``, map assembly) cross
+  the intra-host links first and the network once per step. XLA hands
+  the collectives to the backend's library (NCCL between GPUs).
 
 On a single host everything below degrades gracefully to the local
 devices (including the virtual CPU mesh used in tests), so the same code
-runs from a laptop to a multi-host TPU pod.
+runs from a laptop to a multi-host cluster.
 """
 
 from __future__ import annotations
@@ -31,9 +32,9 @@ def initialize_distributed(
     """
     Initialise JAX's distributed runtime (no-op when single-process).
 
-    With no arguments, configuration is taken from the standard cluster
-    environment variables (``JAX_COORDINATOR_ADDRESS`` etc., or the TPU
-    pod metadata when running on Cloud TPU).
+    Arguments left as None are read from ``JAX_COORDINATOR_ADDRESS``,
+    ``JAX_NUM_PROCESSES`` and ``JAX_PROCESS_ID``. Without a coordinator
+    address and with at most one process, nothing is initialised.
     """
     import jax
 
@@ -45,21 +46,6 @@ def initialize_distributed(
         pid = os.environ.get('JAX_PROCESS_ID')
         process_id = int(pid) if pid is not None else None
     if num_processes in (None, 1) and coordinator_address is None:
-        # No explicit configuration: initialise with auto-detection when
-        # the environment looks like a multi-host accelerator deployment
-        # (Cloud TPU pod metadata etc.); otherwise stay single-process.
-        pod_markers = (
-            'TPU_WORKER_HOSTNAMES', 'TPU_WORKER_ID', 'CLOUD_TPU_TASK_ID',
-            'MEGASCALE_COORDINATOR_ADDRESS',
-        )
-        if any(os.environ.get(k) for k in pod_markers):
-            try:
-                jax.distributed.initialize()
-            except (ValueError, RuntimeError):
-                # Markers present but no resolvable cluster config (e.g.
-                # a single-host TPU with partial pod metadata): stay
-                # single-process
-                pass
         return
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
@@ -72,9 +58,9 @@ def make_multihost_mesh(
     axis_names: tuple[str, str] = ('frames', 'px'),
 ):
     """
-    A 2D mesh with the host (DCN) axis first and the intra-host (ICI)
-    devices second: frames/time batches shard across hosts, pixel rows
-    across each host's chips. Single-host processes get a ``1 x
+    A 2D mesh with the host axis first and the intra-host devices
+    second: frames/time batches shard across hosts, pixel rows across
+    each host's devices. Single-host processes get a ``1 x
     local_device_count`` mesh with the same axis names, so calling code
     is identical either way.
     """

@@ -1,5 +1,5 @@
 """
-Multi-chip scaling: device meshes and sharded execution of the geometry
+Multi-device scaling: device meshes and sharded execution of the geometry
 pipelines.
 
 The reference is a single-process, single-thread library (SURVEY §2.4); its
@@ -13,7 +13,8 @@ ephemeris times. Here those become real sharding axes over a
   output sharding alone.
 - ``data``: the frame/time axis of observation cubes and time batches
   (data parallelism). Reductions (e.g. the disc-fit loss) cross this axis
-  with ``psum`` over ICI.
+  with ``psum``, which XLA hands to the backend's collectives (NCCL
+  between GPUs).
 
 Use :func:`make_mesh` to build a mesh over the available devices and
 :func:`sharded_backplanes` / :func:`planetmapper_tpu.parallel.fit` for the
@@ -46,43 +47,37 @@ def make_mesh(n_devices: int | None = None, axis_names=('px',)):
     return Mesh(arr, axis_names)
 
 
+#: jitted row-sharded programs, keyed by pipeline configuration, block
+#: shape and mesh: a fresh jax.jit per call would re-trace every time
+_SHARDED_CACHE: dict[tuple, Any] = {}
+
+
 def _pad_to_multiple(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
-def sharded_backplanes(body, mesh=None, *, use_pallas=None,
-                       interpret: bool = False,
-                       trace_only: bool = False) -> dict[str, Any]:
+def sharded_backplanes(body, mesh=None) -> dict[str, Any]:
     """
     Compute all default backplanes with the pixel-row axis sharded across
     the mesh. The forward geometry pass is communication-free: each
-    device runs the SAME per-pixel kernel the single-chip path selects
-    (:func:`planetmapper_tpu.pipeline.select_pipeline_impl` - the Mosaic
-    single-kernel pipeline on TPU, the fused XLA graph elsewhere) on its
-    block of rows via ``shard_map``, offset to absolute row coordinates
-    with ``row0 = axis_index * block``. Results are returned as
+    device runs the SAME per-pixel pipeline the single-device path uses
+    (:func:`planetmapper_tpu.pipeline.select_pipeline_impl`) on its block
+    of rows via ``shard_map``, offset to absolute row coordinates with
+    ``row0 = axis_index * block``. Results are returned as
     globally-sharded arrays (an ``all_gather`` happens only if the
     caller converts to a single host array, mirroring the reference's
     backplane-assembly step in FITS export).
-
-    ``use_pallas``/``interpret`` override the kernel selection (normally
-    automatic). ``trace_only=True`` abstractly evaluates the sharded
-    program (``jit(...).eval_shape``) instead of executing it and
-    returns the output ShapeDtypeStructs: this runs shard_map's full
-    trace - including varying-manual-axes (vma) checking on the
-    ``pallas_call`` out shapes - so CPU-mesh dry runs
-    (``__graft_entry__.dryrun_multichip``) can validate the exact
-    shard_map+Mosaic composition the TPU takes in production without
-    hardware (the Pallas HLO interpreter cannot *execute* varying
-    block inputs today, but the bug class this guards against is a
-    trace-time error).
     """
     import jax
     import jax.numpy as jnp
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from ..pipeline import _bucket_size, select_pipeline_impl
+    from ..pipeline import (
+        _bucket_size,
+        pipeline_config_key,
+        select_pipeline_impl,
+    )
 
     if mesh is None:
         mesh = make_mesh()
@@ -90,34 +85,28 @@ def sharded_backplanes(body, mesh=None, *, use_pallas=None,
     n_shard = mesh.shape[axis]
     nx, ny = body.get_img_size()
     nx_b = _bucket_size(nx)
-    if use_pallas:
-        # Forced kernel path: pad up to the Mosaic tile regardless of
-        # the bucket (the auto path only picks Pallas when the bucket
-        # already tiles).
-        nx_b = _pad_to_multiple(nx_b, 128)
-    # Each device's row block must satisfy the kernel's tiling
-    # constraint; probe the gate at the Pallas-friendly block size
-    ny_blk = _pad_to_multiple(-(-ny // n_shard), 64)
-    impl, use_pallas = select_pipeline_impl(
-        body, nx_b, ny_blk, use_pallas=use_pallas, interpret=interpret
-    )
-    if not use_pallas:
-        ny_blk = -(-ny // n_shard)
+    ny_blk = -(-ny // n_shard)
     ny_padded = ny_blk * n_shard
 
     anchors = body._get_pipeline_anchors()
 
-    def block_fn(xy2angular, disc, radii, anchors):
-        row0 = (jax.lax.axis_index(axis) * ny_blk).astype(jnp.float64)
-        return impl(
-            nx_b, ny_blk, xy2angular, disc, radii, anchors, row0=row0
-        )
+    key = (pipeline_config_key(body), nx_b, ny_blk, mesh)
+    fn = _SHARDED_CACHE.get(key)
+    if fn is None:
+        impl = select_pipeline_impl(body)
 
-    fn = jax.jit(shard_map(
-        block_fn, mesh=mesh,
-        in_specs=(P(), P(), P(), P()),
-        out_specs=P(axis, None),
-    ))
+        def block_fn(xy2angular, disc, radii, anchors):
+            row0 = (jax.lax.axis_index(axis) * ny_blk).astype(jnp.float64)
+            return impl(
+                nx_b, ny_blk, xy2angular, disc, radii, anchors, row0=row0
+            )
+
+        fn = jax.jit(shard_map(
+            block_fn, mesh=mesh,
+            in_specs=(P(), P(), P(), P()),
+            out_specs=P(axis, None),
+        ))
+        _SHARDED_CACHE[key] = fn
 
     args = (
         np.asarray(body._get_xy2angular_matrix()),
@@ -125,8 +114,6 @@ def sharded_backplanes(body, mesh=None, *, use_pallas=None,
         np.asarray(body.radii, dtype=np.float64),
         anchors,
     )
-    if trace_only:
-        return dict(fn.eval_shape(*args))
     out = fn(*args)
     if ny_padded != ny or nx_b != nx:
         out = {k: v[:ny, :nx] for k, v in out.items()}

@@ -37,10 +37,10 @@ def backplane_time_series(
         mesh: Optional :func:`planetmapper_tpu.parallel.make_mesh` mesh; the
             time axis is sharded across its first axis.
         as_numpy: Fetch results to host numpy (default). Pass False to
-            keep the cube device-resident - through remote-TPU
-            transports the device->host copy of a large cube can dwarf
-            the compute, so pipelines that keep consuming on device
-            (mapping, reductions) should leave it there.
+            keep the cube device-resident: the device->host copy of a
+            large cube can dwarf the compute, so pipelines that keep
+            consuming on device (mapping, reductions) should leave it
+            there.
 
     Returns:
         Dict of ``(n_times, ny, nx)`` arrays keyed by backplane name.

@@ -167,7 +167,7 @@ class WeightedProgressHook:
 
 # Hand-benchmarked relative generator weights used to aggregate save
 # progress (parity with the reference's implicit performance model,
-# progress.py:158-194). On TPU these are nearly equal - everything is one
+# progress.py:158-194). Here these are nearly equal - everything is one
 # fused pipeline - but the keys are kept for API/metadata compatibility.
 NAVIGATION_SAVE_WEIGHTS: dict[str, float] = {
     '_get_targvec_img': 10,

@@ -1,6 +1,6 @@
 """
-General helper utilities (API parity with the reference's utils module:
-/root/reference/planetmapper/utils.py): RA/Dec axis formatting with
+General helper utilities (API parity with the reference's utils module,
+planetmapper/utils.py): RA/Dec axis formatting with
 degree-minute-second ticks, DMS conversions, warning-filter context
 managers, normalisation, path creation, and wavelength-array generation
 from FITS headers.
@@ -8,7 +8,9 @@ from FITS headers.
 The sexagesimal tick machinery here is built around a single
 :class:`_SexagesimalScale` engine (a data-driven field table shared by the
 locator and the formatter) rather than the reference's pair of independent
-threshold cascades.
+threshold cascades. matplotlib is imported only where a function or
+class needs it (:class:`DMSFormatter` and :class:`DMSLocator` are built on
+first access), so the rest of the package runs without it.
 """
 
 from __future__ import annotations
@@ -17,11 +19,12 @@ import math
 import os
 import pathlib
 import warnings
-from typing import Literal, Sequence
+from typing import TYPE_CHECKING, Literal, Sequence
 
-import matplotlib.ticker
 import numpy as np
-from matplotlib.axes import Axes
+
+if TYPE_CHECKING:
+    from matplotlib.axes import Axes
 
 
 def format_radec_axes(
@@ -45,6 +48,8 @@ def format_radec_axes(
     if not ax.xaxis_inverted():
         ax.invert_xaxis()
     if dms_ticks:
+        from ._dms_ticks import DMSFormatter, DMSLocator
+
         for axis in (ax.xaxis, ax.yaxis):
             axis.set_major_locator(DMSLocator())
             axis.set_major_formatter(DMSFormatter())
@@ -201,61 +206,13 @@ class _SexagesimalScale:
         return ''.join(shown)
 
 
-class DMSFormatter(matplotlib.ticker.Formatter):
-    """
-    Tick formatter displaying angles as degrees/minutes/seconds
-    (e.g. 12°34′56″); pairs with :class:`DMSLocator`. Constant leading
-    fields are moved into the axis offset string.
-    """
+def __getattr__(name: str):
+    # the tick classes subclass matplotlib's, so build them on first use
+    if name in ('DMSFormatter', 'DMSLocator'):
+        from . import _dms_ticks
 
-    def __init__(self) -> None:
-        super().__init__()
-        self._scale: _SexagesimalScale | None = None
-        self._offset_text = ''
-
-    def _get_scale(self) -> _SexagesimalScale:
-        if self._scale is None:
-            vmin, vmax = self.axis.get_view_interval()
-            self._scale = _SexagesimalScale(vmin, vmax)
-        return self._scale
-
-    def __call__(self, x, pos=None) -> str:
-        return self._get_scale().label(x)
-
-    def set_locs(self, locs) -> None:
-        """:meta private:"""
-        vmin, vmax = self.axis.get_view_interval()
-        self._scale = _SexagesimalScale(vmin, vmax)
-        self._offset_text = self._scale.offset_string()
-        super().set_locs(locs)
-
-    def get_offset(self) -> str:
-        """:meta private:"""
-        return self._offset_text
-
-
-class DMSLocator(matplotlib.ticker.Locator):
-    """
-    Tick locator snapping ticks to whole numbers of the sexagesimal field
-    chosen by :class:`_SexagesimalScale`; pairs with :class:`DMSFormatter`.
-    """
-
-    def __init__(self) -> None:
-        super().__init__()
-        self._nice = matplotlib.ticker.MaxNLocator(
-            steps=[1, 2, 5, 10], nbins=8
-        )
-
-    def __call__(self):
-        vmin, vmax = self.axis.get_view_interval()
-        return self.tick_values(vmin, vmax)
-
-    def tick_values(self, vmin: float, vmax: float) -> np.ndarray:
-        """:meta private:"""
-        scale = _SexagesimalScale(vmin, vmax)
-        unit = scale.unit_size
-        ticks = self._nice.tick_values(vmin / unit, vmax / unit)
-        return np.asarray(ticks) * unit
+        return getattr(_dms_ticks, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@
 # pyright additionally run them via .github/workflows/checks.yml.
 #
 # Usage:
-#   ./run_checks.sh          # static checks + full test suite
-#   ./run_checks.sh --fast   # static checks only (seconds, no TPU/JAX)
+#   ./run_checks.sh          # static checks + full CPU test suite
+#   ./run_checks.sh --fast   # static checks only (seconds, no JAX)
+#
+# The GPU check is separate: `python chip_smoke.py` on a machine with a GPU.
 set -u
 cd "$(dirname "$0")"
 status=0
@@ -23,31 +25,11 @@ step() {
 
 step "lint (scripts/lint.py)" python scripts/lint.py
 step "syntax (compileall)" python -m compileall -q \
-    planetmapper_tpu tests scripts bench.py __graft_entry__.py
+    planetmapper_tpu tests scripts bench.py chip_smoke.py __graft_entry__.py
 step "api docs drift" python scripts/generate_api_docs.py --check
 
 if [[ "${1:-}" != "--fast" ]]; then
-    step "tests" bash tests/run_tests.sh
-
-    # Hardware gate: when a TPU is reachable, also run the Mosaic-kernel
-    # test suite on it (EFT grade, full-plane Pallas-vs-XLA parity, the
-    # Pallas map evaluator, sharded-kernel selection). These auto-skip
-    # on CPU, so without this step a regression in the *product default*
-    # TPU path could land green.
-    if python - <<'PY'
-import sys
-try:
-    import jax
-    sys.exit(0 if jax.default_backend() not in ('cpu',) else 1)
-except Exception:
-    sys.exit(1)
-PY
-    then
-        step "tpu kernel tests" env PLANETMAPPER_TPU_TEST_BACKEND=tpu \
-            python -m pytest tests/test_pallas_core.py -q
-    else
-        echo "=== tpu kernel tests: skipped (no TPU backend) ==="
-    fi
+    step "tests" env JAX_PLATFORMS=cpu bash tests/run_tests.sh
 fi
 
 if [[ $status -eq 0 ]]; then

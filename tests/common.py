@@ -4,14 +4,53 @@ import os
 
 import numpy as np
 
-# Hermetic real SPICE kernels: the reference repo's committed test kernels
-# (small real SPK/PCK/LSK excerpts) are mounted read-only; we read them in
-# place rather than duplicating the binaries.
-KERNEL_PATH = os.environ.get(
-    'PLANETMAPPER_TPU_TEST_KERNELS',
-    '/root/reference/tests/data/kernels',
+from planetmapper_tpu.kernels.synthetic import ensure_kernel_set
+
+# SPICE kernels: the seeded synthetic set generated into build/kernels/
+# unless PLANETMAPPER_TPU_TEST_KERNELS names another kernel directory.
+KERNEL_PATH = os.environ.get('PLANETMAPPER_TPU_TEST_KERNELS') or (
+    ensure_kernel_set()
 )
-REFERENCE_DATA_PATH = '/root/reference/tests/data'
+
+# The reference project's tests/data directory (CSPICE-computed goldens,
+# input and output FITS files). Tests marked ``reference_data`` compare
+# against it, and need the reference project's own kernels as
+# PLANETMAPPER_TPU_TEST_KERNELS.
+REFERENCE_DATA_PATH = os.environ.get('PLANETMAPPER_TPU_REFERENCE_DATA', '')
+
+
+def have_reference_data() -> bool:
+    return bool(
+        os.environ.get('PLANETMAPPER_TPU_TEST_KERNELS')
+        and REFERENCE_DATA_PATH
+        and os.path.isdir(REFERENCE_DATA_PATH)
+    )
+
+
+def observation_fits() -> str:
+    """
+    A small seeded observation, ``build/test_data/test.fits``: a
+    (10, 10, 7) cube of Jupiter seen by HST at 2005-01-01T00:00 (header
+    keywords OBJECT, TELESCOP, DATE-OBS), written once per checkout.
+    """
+    from planetmapper_tpu.io import fits
+
+    directory = os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        'build', 'test_data',
+    )
+    path = os.path.join(directory, 'test.fits')
+    if not os.path.exists(path):
+        os.makedirs(directory, exist_ok=True)
+        data = np.random.default_rng(0).uniform(0.0, 1.0, (10, 10, 7))
+        header = fits.Header()
+        header['OBJECT'] = 'JUPITER'
+        header['TELESCOP'] = 'HST'
+        header['DATE-OBS'] = '2005-01-01T00:00:00'
+        tmp = f'{path}.{os.getpid()}.tmp'
+        fits.HDUList([fits.PrimaryHDU(data, header)]).writeto(tmp)
+        os.replace(tmp, path)
+    return path
 
 
 def setup_kernels():

@@ -119,6 +119,7 @@ class TestHelpers:
 
 
 class TestBasicBody:
+    @pytest.mark.reference_data
     def test_attributes(self):
         body = BasicBody('Jupiter', observer='HST', utc='2005-01-01T00:00:00')
         assert body.target == 'JUPITER'

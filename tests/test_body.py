@@ -32,16 +32,19 @@ def body():
 
 
 class TestInit:
+    @pytest.mark.reference_data
     def test_subpoint_golden_earth(self):
         assert Body('Jupiter', utc='2005-01-01').subpoint_lon == pytest.approx(
             153.12547767272153, abs=1e-8
         )
 
+    @pytest.mark.reference_data
     def test_subpoint_golden_cn_plus_s(self):
         assert Body(
             'Jupiter', utc='2005-01-01', aberration_correction='CN+S'
         ).subpoint_lon == pytest.approx(153.12614128206837, abs=1e-6)
 
+    @pytest.mark.reference_data
     def test_custom_target_frame(self):
         b = Body('Jupiter', utc='2005-01-01', target_frame='iau_jupiter')
         assert b.subpoint_lon == pytest.approx(153.12547767272153, abs=1e-8)
@@ -81,6 +84,7 @@ class TestRotationSense:
 class TestAttributes:
     """Reference goldens: tests/test_body.py:106-165."""
 
+    @pytest.mark.reference_data
     def test_attributes(self, body):
         assert body.target == 'JUPITER'
         assert body.utc == '2005-01-01T00:00:00.000000'
@@ -197,6 +201,7 @@ class TestCreateOtherBody:
 class TestTransforms:
     """Golden transform pairs from the reference tests/test_body.py."""
 
+    @pytest.mark.reference_data
     def test_lonlat2radec_goldens(self, body):
         pairs = [
             [(0, 90), (196.37390490466322, -5.561534444253404)],
@@ -214,6 +219,7 @@ class TestTransforms:
             ra, dec = body.lonlat2radec(lon, lat)
             assert np.isnan(ra) and np.isnan(dec)
 
+    @pytest.mark.reference_data
     def test_radec2lonlat_golden(self, body):
         lon, lat = body.radec2lonlat(
             196.37198562427025, -5.565793847134351
@@ -276,6 +282,7 @@ class TestTransforms:
         assert km_x == pytest.approx(10000.0, abs=1e-4)
         assert km_y == pytest.approx(-5000.0, abs=1e-4)
 
+    @pytest.mark.reference_data
     def test_north_pole_angle(self, body):
         assert body.north_pole_angle() == pytest.approx(
             -24.15516987997688, abs=1e-6
@@ -412,6 +419,7 @@ class TestRings:
 
 
 class TestOtherBodyVisibility:
+    @pytest.mark.reference_data
     def test_thebe_hidden(self):
         # Reference test_body.py:384-390: THEBE is hidden behind Jupiter at
         # 2005-01-01 04:00, AMALTHEA is visible

@@ -153,6 +153,7 @@ class TestXYTransforms:
 class TestBackplaneGoldens:
     """Reference goldens: tests/test_body_xy.py:2120-2154."""
 
+    @pytest.mark.reference_data
     def test_emission_img(self, small):
         img = small.get_backplane_img(' emission ')
         golden = np.array(
@@ -164,6 +165,7 @@ class TestBackplaneGoldens:
         )
         assert np.allclose(img, golden, atol=1e-3, equal_nan=True)
 
+    @pytest.mark.reference_data
     def test_emission_map(self, small):
         m = small.get_backplane_map(' emission ', degree_interval=90)
         golden = np.array(

@@ -5,7 +5,8 @@ Validates every op against numpy float64 across the pipeline's magnitude
 range (km-scale 1e-3..1e9, radian-scale 1e-9..1, mixed signs), the
 normalisation invariant, exact f64 round-tripping, and NaN propagation.
 Runs on the forced-CPU backend like the rest of the suite; the ds ops are
-pure elementwise f32 jnp code, so CPU f32 semantics match TPU VPU f32.
+pure elementwise f32 jnp code, so CPU f32 semantics match any
+accelerator's f32.
 """
 
 import numpy as np

@@ -116,6 +116,7 @@ def compare_fits_to_reference(
 
 
 class TestLoading:
+    @pytest.mark.reference_data
     def test_planmap_fits(self):
         obs = Observation(os.path.join(INPUTS, 'planmap.fits'))
         assert obs.target == 'JUPITER'
@@ -128,6 +129,7 @@ class TestLoading:
         assert obs.get_disc_params() == pytest.approx((1.1, 2.2, 3.3, 4.4))
         assert obs.get_disc_method() == 'header'
 
+    @pytest.mark.reference_data
     def test_planmap_override(self):
         obs = Observation(
             os.path.join(INPUTS, 'planmap.fits'), observer='EARTH',
@@ -136,6 +138,7 @@ class TestLoading:
         assert obs.observer == 'EARTH'
         assert obs.utc == '2005-01-01T00:00:00.000000'
 
+    @pytest.mark.reference_data
     def test_wcs_fits(self):
         obs = Observation(os.path.join(INPUTS, 'wcs.fits'))
         assert obs.get_x0() == pytest.approx(198.87871682168858, abs=0.2)
@@ -144,6 +147,7 @@ class TestLoading:
         assert obs.get_rotation() == pytest.approx(260.32237572846986, abs=0.2)
         assert obs.get_disc_method() == 'wcs'
 
+    @pytest.mark.reference_data
     def test_wcs_fits_sin_projection(self):
         # Same observation navigated through an orthographic (SIN) WCS:
         # the target sits close to the reference point, so the disc
@@ -165,6 +169,7 @@ class TestLoading:
         )
         assert obs.get_disc_method() == 'wcs'
 
+    @pytest.mark.reference_data
     def test_extended_fits(self):
         obs = Observation(os.path.join(INPUTS, 'extended.fits'))
         assert obs.target == 'JUPITER'
@@ -174,12 +179,14 @@ class TestLoading:
             np.array([[[1, 2, 3], [4, 5, 6]], [[7, 8, 9], [10, 11, 12]]]),
         )
 
+    @pytest.mark.reference_data
     def test_2d_image_fits_mjd(self):
         obs = Observation(os.path.join(INPUTS, '2d_image.fits'))
         # MJD-BEG/END 51544/51545 -> midpoint 51544.5 = 2000-01-01T12:00
         assert obs.utc == '2000-01-01T12:00:00.000000'
         assert obs.data.shape == (1, 2, 2)
 
+    @pytest.mark.reference_data
     def test_image_png(self):
         obs = Observation(
             os.path.join(INPUTS, '2d_image.png'), target='jupiter',
@@ -204,6 +211,7 @@ class TestLoading:
         with pytest.raises(TypeError):
             obs.set_img_size(5, 5)
 
+    @pytest.mark.reference_data
     def test_empty_fits(self):
         with pytest.raises(ValueError):
             Observation(os.path.join(INPUTS, 'empty.fits'))
@@ -237,6 +245,7 @@ class TestDiscFitting:
             obs.fit_disc_radius()
 
 
+@pytest.mark.reference_data
 class TestNavRegression:
     """Full regression against the reference's committed output FITS."""
 
@@ -322,6 +331,7 @@ MAP_CONFIGS = {
 }
 
 
+@pytest.mark.reference_data
 class TestMapRegression:
     @pytest.mark.parametrize('map_type', sorted(MAP_CONFIGS))
     def test_save_mapped_observation(self, observation, tmp_path, map_type):
@@ -360,6 +370,7 @@ class TestMapRegression:
         compare_fits_to_reference(path, 'map_custom_backplanes.fits')
 
 
+@pytest.mark.reference_data
 class TestSaveReload:
     def test_roundtrip(self, observation, tmp_path):
         path = str(tmp_path / 'roundtrip.fits')

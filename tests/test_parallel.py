@@ -64,6 +64,23 @@ class TestShardedBackplanes:
         assert np.asarray(sharded['EMISSION']).shape == (7, 10)
 
 
+    def test_program_cached_across_calls(self):
+        from planetmapper_tpu.parallel import sharding
+
+        body = BodyXY('Jupiter', utc='2005-01-01', nx=16, ny=12)
+        body.set_disc_params(8, 6, 4, 0.0)
+        mesh = make_mesh(4)
+        first = sharded_backplanes(body, mesh)
+        n_programs = len(sharding._SHARDED_CACHE)
+        body.set_disc_params(7.5, 6.5, 4.2, 10.0)
+        second = sharded_backplanes(body, mesh)
+        assert len(sharding._SHARDED_CACHE) == n_programs
+        assert not np.array_equal(
+            np.asarray(first['EMISSION']), np.asarray(second['EMISSION']),
+            equal_nan=True,
+        )
+
+
 class TestShardedMapImg:
     @pytest.mark.parametrize('interpolation', ['linear', 'cubic'])
     def test_matches_unsharded(self, interpolation):

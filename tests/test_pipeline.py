@@ -120,6 +120,15 @@ class TestAnchorSpec:
 
 
 class TestFusedPipeline:
+    @pytest.fixture(autouse=True, params=['double', 'mixed'])
+    def precision(self, request, monkeypatch):
+        # both numeric modes of the fused pipeline: 'double' (default)
+        # and the f32 'mixed' mode (PLANETMAPPER_TPU_PRECISION=mixed)
+        from planetmapper_tpu import pipeline
+
+        monkeypatch.setattr(pipeline, 'DEFAULT_PRECISION', request.param)
+        return request.param
+
     def test_matches_exact_hst(self):
         body = BodyXY(
             'Jupiter', observer='HST', utc='2005-01-01T00:00:00', nx=15, ny=10
@@ -207,3 +216,25 @@ class TestFusedPipeline:
             )
         with pytest.raises(ValueError, match='unknown planes'):
             compute_backplanes(body, names=('NOT-A-PLANE',))
+
+
+class TestPrecisionSelection:
+    def test_pick_ds_is_native_f64(self, monkeypatch):
+        from planetmapper_tpu.ops import ds, ds64
+        from planetmapper_tpu.pipeline import pick_ds
+
+        monkeypatch.delenv('PLANETMAPPER_TPU_DS', raising=False)
+        assert pick_ds() is ds64
+        monkeypatch.setenv('PLANETMAPPER_TPU_DS', 'ds')
+        assert pick_ds() is ds
+
+    def test_pick_ds_ignores_backend(self, monkeypatch):
+        import jax
+
+        from planetmapper_tpu.ops import ds64
+        from planetmapper_tpu.pipeline import pick_ds
+
+        monkeypatch.delenv('PLANETMAPPER_TPU_DS', raising=False)
+        monkeypatch.setattr(jax, 'default_backend', lambda: 'gpu')
+        assert pick_ds() is ds64
+

@@ -17,7 +17,7 @@ matplotlib.use('Agg')
 import numpy as np
 import pytest
 
-from common import REFERENCE_DATA_PATH, setup_kernels
+from common import REFERENCE_DATA_PATH, observation_fits, setup_kernels
 
 import planetmapper_tpu
 from planetmapper_tpu import BasicBody, Body, BodyXY, Observation
@@ -34,7 +34,7 @@ def kernels():
 
 @pytest.fixture()
 def observation():
-    obs = Observation(os.path.join(INPUTS, 'test.fits'))
+    obs = Observation(observation_fits())
     obs.set_disc_params(2.5, 3.1, 3.9, 123.456)
     return obs
 
@@ -163,6 +163,7 @@ class TestGUILogic:
         ):
             assert '°' not in gui._x11('45°30′')
 
+    @pytest.mark.reference_data
     def test_wcs_offsets_roundtrip(self):
         from planetmapper_tpu import gui as gui_module
 
@@ -517,7 +518,7 @@ class TestAPIContract:
     def test_observation(self):
         self._check(
             ObservationClass,
-            path=os.path.join(INPUTS, 'test.fits'),
+            path=observation_fits(),
             # filled in from the FITS header rather than the signature
             skip_instance_keys=('target', 'utc', 'observer'),
         )
@@ -913,7 +914,7 @@ class TestDeviceInterp:
 
     def test_tiled_window_beyond_onehot_gate(self):
         # Coefficient grids past _ONEHOT_MAX_COEFFS previously fell back
-        # to the scalarized-gather evaluator; with tiling the MXU one-hot
+        # to the scalarized-gather evaluator; with tiling the matmul one-hot
         # path handles them (host-FITPACK coefficients + tiled eval)
         import scipy.interpolate
 
@@ -922,8 +923,7 @@ class TestDeviceInterp:
         n = interp_device._ONEHOT_MAX_COEFFS + 40
         rng = np.random.default_rng(32)
         img = rng.normal(size=(n, 80)).cumsum(axis=0) * 0.02
-        # one long axis is enough to demand tiling (the gather fallback
-        # this grid previously took scalarizes on TPU)
+        # one long axis is enough to demand tiling
         assert interp_device._use_tiling(n, 80, (70, 70))
         v = np.linspace(0.05, 0.95, 70)[:, None]
         u = np.linspace(0.05, 0.95, 70)[None, :]
@@ -964,6 +964,36 @@ class TestDeviceInterp:
             ref = sp.ev(y.ravel(), x.ravel()).reshape(x.shape)
             np.testing.assert_allclose(
                 out[i], ref, atol=3e-5 * max(np.abs(ref).max(), 1.0)
+            )
+
+    def test_tiled_window_cube_nan(self):
+        # Batched frames with per-frame NaN patches through the tiled
+        # contraction's windowed NaN indicators, against host FITPACK
+        from planetmapper_tpu.ops import interp, interp_device
+
+        rng = np.random.default_rng(34)
+        cube = rng.normal(size=(2, 440, 420)).cumsum(axis=1) * 0.05
+        cube[0, 100:104, 200:207] = np.nan
+        cube[1, 300:303, 50:60] = np.nan
+        v = np.linspace(0.02, 0.98, 66)[:, None]
+        u = np.linspace(0.02, 0.98, 66)[None, :]
+        y = np.broadcast_to(439.0 * v, (66, 66)).copy()
+        x = np.broadcast_to(419.0 * u + 2.0 * v, (66, 66)).copy()
+        assert interp_device._use_tiling(440, 420, x.shape)
+        out = np.asarray(interp_device.spline_interpolation_device(
+            cube, x, y, interpolation=3, warn_nan=False,
+            propagate_nan=True, spline_smoothing=0,
+        ))
+        for i in range(2):
+            ref = np.full(x.shape, np.nan)
+            interp.spline_interpolation(
+                cube[i], x, y, ref, interpolation=3, warn_nan=False,
+                propagate_nan=True, spline_smoothing=0,
+            )
+            assert np.array_equal(np.isnan(out[i]), np.isnan(ref))
+            np.testing.assert_allclose(
+                out[i], ref, atol=3e-5 * max(np.nanmax(np.abs(ref)), 1.0),
+                equal_nan=True,
             )
 
     def test_smoothing_cube_per_frame_knots(self):
@@ -1092,6 +1122,44 @@ class TestDeviceSolveInterp:
         np.testing.assert_allclose(
             np.asarray(m), m_np, equal_nan=True
         )
+
+
+class TestMapEvaluatorSelection:
+    """map_img takes the XLA evaluators whatever the backend says."""
+
+    @pytest.mark.parametrize('backend', ['gpu', 'cpu'])
+    def test_same_programs_on_every_backend(self, monkeypatch, backend):
+        import jax
+
+        import planetmapper_tpu
+        from planetmapper_tpu.ops import interp_device, pchip_device
+
+        body = planetmapper_tpu.BodyXY(
+            'Jupiter', observer='EARTH', utc='2005-01-01', sz=24
+        )
+        body.set_disc_params(12, 12, 9, 0.0)
+        img = np.random.default_rng(0).random((24, 24))
+        expected = {
+            mode: np.asarray(body.map_img(
+                img, interpolation=mode, degree_interval=10
+            ))
+            for mode in ('linear', 'cubic', 'smooth')
+        }
+        monkeypatch.setattr(jax, 'default_backend', lambda: backend)
+        solve = interp_device._spline_solve_eval_fn.cache_info()
+        smooth = pchip_device._smooth_fn.cache_info()
+        for mode, ref in expected.items():
+            got = np.asarray(body.map_img(
+                img, interpolation=mode, degree_interval=10
+            ))
+            np.testing.assert_array_equal(got, ref, err_msg=mode)
+        # served by the cached XLA programs: no new program was built
+        after = interp_device._spline_solve_eval_fn.cache_info()
+        assert after.hits == solve.hits + 2
+        assert after.currsize == solve.currsize
+        after_s = pchip_device._smooth_fn.cache_info()
+        assert after_s.hits == smooth.hits + 1
+        assert after_s.currsize == smooth.currsize
 
 
 class TestDeviceSmooth:
@@ -1245,183 +1313,3 @@ class TestDeviceSmooth:
         )
         assert np.all(np.isnan(out))
 
-
-class TestPallasMapEval:
-    """
-    The Pallas map-evaluation kernel (ops/map_pallas.py) in interpret
-    mode: exact-contract parity with scipy and the host/XLA paths. Real
-    Mosaic execution is covered by tests/test_pallas_core.py on TPU.
-    """
-
-    def _eval(self, kx, ky, batched, propagate_nan, ty, tx, c2, nanf,
-              y, x, valid):
-        import jax.numpy as jnp
-
-        from planetmapper_tpu.ops import map_pallas
-
-        ev = map_pallas.make_pallas_eval(
-            kx, ky, batched, propagate_nan, interpret=True
-        )
-        return np.asarray(ev(
-            jnp.asarray(ty), jnp.asarray(tx),
-            jnp.asarray(c2, jnp.float32), jnp.asarray(nanf, jnp.float32),
-            jnp.asarray(y), jnp.asarray(x), jnp.asarray(valid),
-        ))
-
-    @pytest.mark.parametrize('kxy', [(1, 1), (3, 3), (3, 1), (2, 2)])
-    def test_scipy_parity(self, kxy):
-        import scipy.interpolate
-
-        ky, kx = kxy
-        rng = np.random.default_rng(3)
-        ny_i, nx_i = 20, 24
-        img = rng.normal(size=(ny_i, nx_i))
-        x = rng.uniform(-5, 28, 400)
-        y = rng.uniform(-5, 24, 400)
-        sp = scipy.interpolate.RectBivariateSpline(
-            np.arange(ny_i), np.arange(nx_i), img, kx=ky, ky=kx, s=0
-        )
-        ty, tx = sp.get_knots()
-        c2 = sp.get_coeffs().reshape(len(ty) - ky - 1, len(tx) - kx - 1)
-        out = self._eval(
-            kx, ky, False, False, ty, tx, c2,
-            np.zeros((ny_i, nx_i)), y, x, np.ones(400, bool),
-        )
-        # .ev evaluates clamped into the grid, like the kernel
-        np.testing.assert_allclose(out, sp.ev(y, x), atol=2e-5)
-
-    def test_nan_propagation_matches_host(self):
-        from planetmapper_tpu.ops import interp
-        from planetmapper_tpu.ops.interp_device import _fitpack_coeffs
-
-        rng = np.random.default_rng(5)
-        ny_i, nx_i = 30, 26
-        img = rng.normal(size=(ny_i, nx_i))
-        img[rng.uniform(size=img.shape) < 0.05] = np.nan
-        S = 500
-        x = rng.uniform(-2, nx_i + 2, S)
-        y = rng.uniform(-2, ny_i + 2, S)
-        # exact-integer coordinates exercise the floor==ceil edge
-        x[:50] = rng.integers(0, nx_i, 50)
-        y[:50] = rng.integers(0, ny_i, 50)
-        ref = np.full((1, S), np.nan)
-        interp.spline_interpolation(
-            img, x.reshape(1, -1), y.reshape(1, -1), ref,
-            interpolation=3, warn_nan=False, propagate_nan=True,
-            spline_smoothing=0,
-        )
-        ty, tx, c = _fitpack_coeffs(img, 3, 3, 0, False)
-        out = self._eval(
-            3, 3, False, True, ty, tx,
-            c.reshape(len(ty) - 4, len(tx) - 4), np.isnan(img),
-            y, x, np.ones(S, bool),
-        )
-        ref = ref.ravel()
-        assert np.array_equal(np.isnan(out), np.isnan(ref))
-        np.testing.assert_allclose(out, ref, atol=2e-5, equal_nan=True)
-
-    def test_batched_frames(self):
-        import scipy.interpolate
-
-        from planetmapper_tpu.ops.interp_device import _fitpack_coeffs
-
-        rng = np.random.default_rng(7)
-        ny_i, nx_i = 16, 18
-        S = 300
-        x = rng.uniform(0, nx_i - 1, S)
-        y = rng.uniform(0, ny_i - 1, S)
-        imgs = rng.normal(size=(3, ny_i, nx_i))
-        c2s = []
-        for frame in imgs:
-            ty, tx, c = _fitpack_coeffs(frame, 3, 3, 0, False)
-            c2s.append(c.reshape(len(ty) - 4, len(tx) - 4))
-        out = self._eval(
-            3, 3, True, True, ty, tx, np.stack(c2s),
-            np.zeros((3, ny_i, nx_i)), y, x, np.ones(S, bool),
-        )
-        for f, frame in enumerate(imgs):
-            sp = scipy.interpolate.RectBivariateSpline(
-                np.arange(ny_i), np.arange(nx_i), frame, kx=3, ky=3, s=0
-            )
-            np.testing.assert_allclose(out[f], sp.ev(y, x), atol=2e-5)
-
-    def test_gate_off_on_cpu(self):
-        from planetmapper_tpu.ops.map_pallas import pallas_map_supported
-
-        # CPU backend (the test environment) must keep the XLA path
-        assert not pallas_map_supported(3, 3, 150, 150, 150, 150)
-
-
-class TestPallasSmoothEval:
-    """
-    The windowed Pallas 'smooth' sampler (ops/smooth_pallas.py) in
-    interpret mode (PLANETMAPPER_TPU_SMOOTH_PALLAS=force): exact NaN
-    contract + value parity with the XLA tiled-window path it replaces
-    on TPU. Real Mosaic execution is covered by test_pallas_core.py.
-    """
-
-    def _both(self, monkeypatch, img, x_map, y_map, propagate_nan=True):
-        from planetmapper_tpu.ops import pchip_device
-
-        kwargs = dict(
-            propagate_nan=propagate_nan, oversample_by=5,
-            max_oversampled_img_size=10000,
-        )
-        monkeypatch.delenv('PLANETMAPPER_TPU_SMOOTH_PALLAS',
-                           raising=False)
-        ref = pchip_device.smooth_interpolation_device(
-            img, x_map, y_map, **kwargs
-        )
-        monkeypatch.setenv('PLANETMAPPER_TPU_SMOOTH_PALLAS', 'force')
-        out = pchip_device.smooth_interpolation_device(
-            img, x_map, y_map, **kwargs
-        )
-        return out, ref
-
-    @pytest.mark.parametrize('propagate_nan', [True, False])
-    def test_parity_with_xla_path(self, monkeypatch, propagate_nan):
-        rng = np.random.default_rng(11)
-        ny_i, nx_i = 30, 26
-        img = rng.normal(size=(ny_i, nx_i))
-        img[rng.uniform(size=img.shape) < 0.05] = np.nan
-        # 2D map spanning beyond the grid on all sides; several spatial
-        # tiles (70x130 pads to 128x192 = 2x3 tiles of 64x64)
-        x_map = rng.uniform(-2, nx_i + 2, (70, 130))
-        y_map = rng.uniform(-2, ny_i + 2, (70, 130))
-        # smooth footprints: sort both axes so each 64x64 tile's samples
-        # hit a local window (random scatter legitimately exceeds it)
-        x_map = np.sort(x_map, axis=1)
-        y_map = np.sort(y_map, axis=0)
-        x_map[0, :3] = np.nan  # invalid samples
-        out, ref = self._both(
-            monkeypatch, img, x_map, y_map, propagate_nan
-        )
-        assert out.shape == ref.shape == (70, 130)
-        assert np.array_equal(np.isnan(out), np.isnan(ref))
-        np.testing.assert_allclose(out, ref, atol=2e-5, equal_nan=True)
-
-    def test_cube_and_small_map(self, monkeypatch):
-        rng = np.random.default_rng(13)
-        imgs = rng.normal(size=(3, 12, 14))
-        imgs[1, 4, 5] = np.nan
-        x_map = np.sort(rng.uniform(0, 13, (9, 17)), axis=1)
-        y_map = np.sort(rng.uniform(0, 11, (9, 17)), axis=0)
-        out, ref = self._both(monkeypatch, imgs, x_map, y_map)
-        assert out.shape == (3, 9, 17)
-        assert np.array_equal(np.isnan(out), np.isnan(ref))
-        np.testing.assert_allclose(out, ref, atol=2e-5, equal_nan=True)
-
-    def test_footprint_gate_rejects_scatter(self):
-        from planetmapper_tpu.ops.smooth_pallas import stage_smooth_tiles
-
-        rng = np.random.default_rng(17)
-        # one 64x64 tile whose samples scatter across a 196-wide
-        # oversampled grid: must refuse (window is 128)
-        n_b = 40
-        n_s = (n_b - 1) * 5 + 1
-        x_map = rng.uniform(0, n_b - 1, (64, 64))
-        y_map = rng.uniform(0, n_b - 1, (64, 64))
-        staged = stage_smooth_tiles(
-            x_map, y_map, 0, 0, n_s, n_s, 0.2, 0.2, n_b, n_b, True
-        )
-        assert staged is None
